@@ -1,7 +1,7 @@
 """Mapping benchmark harness (the analogue of the reference's
 ``benches/mapping/bench.py``, which sweeps thread counts on a CPU pool).
 
-On TPU the sweep axis is the *query batch size* instead of threads: the
+On the device the sweep axis is the *query batch size* instead of threads: the
 fragment axis of one device dispatch plays the role the thread pool plays
 in the reference.  Results are written as JSON records compatible in
 spirit with the reference's ``v0.6.0.json`` (per-genome wall times over
@@ -67,7 +67,7 @@ def main():
     parser.add_argument("-o", "--output", required=True)
     parser.add_argument(
         "-b", "--batch-sizes", default="1,2,4,8",
-        help="query batch sizes to sweep (the TPU analogue of threads)",
+        help="query batch sizes to sweep (the device analogue of threads)",
     )
     args = parser.parse_args()
     if not args.data and not args.synthetic:

@@ -2,7 +2,7 @@
 
 Measures the full ingest pipeline -- C winnow sketching, CSR construction
 (threaded radix sort), sharded-index assembly, budget presizing -- on the
-256-genome all-vs-all workload, without touching the TPU.
+256-genome all-vs-all workload, without touching the device.
 
 Usage: JAX_PLATFORMS=cpu python benches/profile_index_build.py [n_genomes]
 """

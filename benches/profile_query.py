@@ -68,18 +68,15 @@ def main():
     t_stage = time.time() - t0
 
     fn = session._get_fn()
-    dev_args = (
-        jnp.asarray(frags),
-        jnp.asarray(frag_qg),
-        jnp.zeros(session._epoch + 1, jnp.int32),
-    )
     # device compute only (inputs already on device)
-    darg0 = jax.device_put(dev_args[0])
-    darg1 = jax.device_put(dev_args[1])
-    darg2 = jax.device_put(dev_args[2])
-    jax.block_until_ready((darg0, darg1, darg2))
+    darg0 = jax.device_put(jnp.asarray(frags))
+    darg1 = jax.device_put(jnp.asarray(frag_qg))
+    jax.block_until_ready((darg0, darg1))
     t0 = time.time()
-    out = fn(darg0, darg1, darg2, *session._index_args, session._ident_tab)
+    out = fn(
+        darg0, darg1, *session._index_args, session._ident_tab,
+        session._gpos_bucket_dev,
+    )
     jax.block_until_ready(out)
     t_dev = time.time() - t0
 

@@ -100,15 +100,15 @@ def main():
     gate = stats.l2_gate_table(l, k, params.percentage_identity)
     full_args = [jnp.asarray(a[0]) for a in (
         sidx.uniq_hash, sidx.row_start, sidx.row_len, sidx.post_gpos,
-        sidx.mini_hash, sidx.mini_wpos, sidx.mini_seqid,
+        sidx.mini_hash, sidx.mini_wpos,
         sidx.mini_gpos, sidx.mini_prev, sidx.contig_offset,
         sidx.seq_to_genome)]
     static = dict(k=k, w=w, length=l, protein=False, l=l,
                   hmax=b["hmax"], ivmax=b["ivmax"], cmax=b["cmax"],
-                  rmax=b["rmax"], t_chunks=b["t_chunks"], g_max=g_max,
+                  rmax=b.get("rmax"), t_chunks=b["t_chunks"], g_max=g_max,
                   bin_max=b["bin_max"], smax=smax, q_count=4,
                   bucket_steps=sidx.bucket_steps,
-                  use_pallas=session._use_pallas,
+                  l2_kernel=session._l2_kernel,
                   m_values=tuple(sorted({int(max(int(v), 1))
                                          for v in tab[: b["smax"] + 1]})))
     ident2d = stats.identity_table(smax, k)

@@ -1,10 +1,11 @@
-"""TPU-native whole-genome Average Nucleotide Identity (ANI) engine.
+"""Whole-genome Average Nucleotide Identity (ANI) engine on JAX accelerators.
 
 A from-scratch reimplementation of the capabilities of ``pyfastani``
-(the FastANI method: MashMap-based alignment-free genome mapping) designed
-for TPU hardware: sequence hashing, minimizer winnowing, sketch
-intersection, and ANI aggregation run as vectorized JAX/XLA/Pallas programs
-over device meshes, instead of the reference's C++ pointer-chasing loops.
+(the FastANI method: MashMap-based alignment-free genome mapping) whose
+query path -- fragment winnowing and sketching, candidate regions,
+sketch intersection and ANI aggregation -- runs as one vectorized
+JAX/XLA program over a device mesh (with one Pallas kernel on NVIDIA
+GPUs), instead of the reference's C++ pointer-chasing loops.
 
 Public API mirrors the reference contract
 (``/root/reference/src/pyfastani/__init__.py:1-27``):

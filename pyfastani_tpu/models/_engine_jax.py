@@ -1,4 +1,4 @@
-"""Device (JAX/TPU) query engine.
+"""Device (JAX) query engine.
 
 Query-time device work lives in `parallel.sharded` (one fused program
 per dispatch); this module keeps the device-side *ingest* path -- the

@@ -5,7 +5,7 @@ the observable behavior of pyfastani/FastANI, reconstructed from
 ``/root/reference/src/pyfastani/_fastani.pyx`` (winnowing ``:156-309``,
 L1 ``:885-954``, query driver ``:1006-1136``) and the declared C++ API
 (``include/fastani/**``, internals reconstructed from Jain et al. 2018 and
-pinned by the reference golden tests).  The JAX/TPU engine is validated
+pinned by the reference golden tests).  The JAX device engine is validated
 against this module, and this module is validated against the on-disk
 protein golden test plus a literal deque-port oracle.
 
@@ -425,14 +425,29 @@ def _l2_shared_curve(
     return anchors, present.sum(axis=1).astype(np.int32)
 
 
+def _position_keys(index: PostingIndex) -> np.ndarray:
+    """(seqId << 32 | wpos) keys of the position-ordered minimizer store,
+    built once per store: posting edits never touch it, and rebuilding the
+    keys per lookup made every L2 candidate O(M)."""
+    cached = getattr(index, "_position_key_cache", None)
+    if (
+        cached is None
+        or cached[0] is not index.mini_seqid
+        or cached[1] is not index.mini_wpos
+    ):
+        keys = (index.mini_seqid.astype(np.int64) << 32) | index.mini_wpos.astype(
+            np.int64
+        )
+        cached = (index.mini_seqid, index.mini_wpos, keys)
+        index._position_key_cache = cached
+    return cached[2]
+
+
 def _search_pos(index: PostingIndex, seq_id: int, wpos: int) -> int:
     """``Sketch::searchIndex``: lower bound on (seqId, wpos) in the
     position-ordered minimizer store."""
     key = np.int64(seq_id) << 32 | np.int64(np.uint32(np.int64(wpos)))
-    keys = (index.mini_seqid.astype(np.int64) << 32) | index.mini_wpos.astype(
-        np.int64
-    )
-    return int(np.searchsorted(keys, key, side="left"))
+    return int(np.searchsorted(_position_keys(index), key, side="left"))
 
 
 @dataclasses.dataclass

@@ -9,7 +9,7 @@ Behavioral parity targets:
 
 Unlike the reference (views over C++ vectors/unordered_maps), the backing
 store here is three flat NumPy/JAX integer arrays (hash, seqId, wpos) in
-structure-of-arrays form -- the layout the TPU kernels consume directly and
+structure-of-arrays form -- the layout the device programs consume directly and
 the only thing that needs serializing (the posting index is always rebuilt,
 matching ``_fastani.pyx:861-865``).
 """

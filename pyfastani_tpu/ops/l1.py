@@ -11,13 +11,10 @@ jitted program.  All stages are static-shape with explicit budgets:
   Overflow of the *total* is reported, never silent;
 * ``ivmax``: merged candidate intervals per fragment.
 
-TPU cost model (measured on v5e, benches/profile_l1_micro.py): random
-1-element gathers cost ~28 ns each but a 12-byte row costs the same DMA
-descriptor as a 4-byte one, so every multi-array lookup here gathers ONE
-packed row; flat ``lax.cumsum``/``cummax`` over ~1M elements costs ~25 ms
-(21 shifted passes), so scans run 2-level over a (rows, 512) reshape;
-``jax.ops.segment_*`` lowers to a serialized scatter, so the interval
-reductions pack into a single ``segment_max``.
+Formulation choices (not yet timed against their plain forms on the
+GPU): every multi-array lookup gathers ONE packed row; scans run 2-level
+over a (rows, 512) reshape; the interval reductions pack into a single
+``segment_max``.
 
 Round-5 redesign -- three structural cuts to the T-sized gather count:
 
@@ -62,9 +59,8 @@ _configure_jax()
 
 __all__ = ["l1_candidates_device"]
 
-# numpy scalar, NOT jnp: module-level jnp arrays become device-committed
-# after one execution and then get lifted into extra executable parameters
-# on re-trace, which this platform's dispatch fast path drops
+# numpy scalars: plain constants in every trace (a module-level jnp array
+# would be a device buffer created at import)
 _BIG = np.int32(2**30)
 # padding sentinel for global-position values (> any real gpos; real
 # per-shard spans are capped ~1 Gbp below it at index build)
@@ -76,10 +72,9 @@ _SCAN_COLS = 512  # 2-level scan row width
 def _scan2(op, x):
     """Flat inclusive scan via a (rows, 512) decomposition.
 
-    A 1-D ``lax.cumsum``/``cummax`` over ~1M elements runs ~21 shifted
-    full-array passes (~25 ms measured); scanning the minor axis of a 2-D
-    reshape vectorizes across rows and only the tiny row-carry scan stays
-    1-D.  Falls back to the flat scan when the length doesn't divide.
+    Scanning the minor axis of a 2-D reshape vectorizes across rows and
+    only the tiny row-carry scan stays 1-D.  Falls back to the flat scan
+    when the length doesn't divide.
     """
     n = x.shape[0]
     if n % _SCAN_COLS or n <= _SCAN_COLS:
@@ -193,8 +188,8 @@ def l1_candidates_device(
     )  # (F*S, 2)
 
     # probe owning output slot t: scatter each non-empty probe's id at its
-    # begin offset and cummax-fill forward -- much cheaper on TPU than a
-    # binary search per output slot.
+    # begin offset and cummax-fill forward (instead of a binary search per
+    # output slot).
     probe_ids = jnp.arange(F * S, dtype=jnp.int32)
     scat = jnp.where(lens_flat > 0, jnp.minimum(off_begin, T), T)
     seg = jnp.zeros((T + 1,), jnp.int32).at[scat].max(probe_ids)

@@ -6,7 +6,7 @@ count at every window offset with an ordered-map sliding intersection
 at ``include/fastani/map/compute_map.pxd:30-51``); the effective count is
 ``|Sq ∩ window|`` (containment -- see the note in
 ``_engine_np._l2_shared_curve``, forced by the exact-100.0 self-query
-goldens).  Pointer-chasing over a ``std::map`` has no TPU analogue.
+goldens).  Pointer-chasing over a ``std::map`` has no array analogue.
 
 Formulation here: *presence intervals evaluated at record anchors*.  A
 ref minimizer occurrence ``p`` whose hash is in the query sketch makes
@@ -25,9 +25,11 @@ the shared count at anchor ``a`` is a pure interval-stabbing count:
     shared(a) = #{j : start_j <= a} - #{j : p_j < a}
 
 two vectorized binary searches over the sorted starts / sorted ends of a
-chunk's presence intervals.  O((R log R) per chunk, no scatter, no
-(B, cmax) difference-array buffer -- TPU scatters serialize, and the
-anchor count (~2·span/(w+1)) is far below the offset count (span).
+chunk's presence intervals.  O(R log R) per chunk, no scatter, no
+(B, cmax) difference-array buffer: the anchor count (~2·span/(w+1)) is
+far below the offset count (span).  This is the portable path and the
+reference of the GPU kernel (`ops.l2_pallas`), which drops the sort by
+precomputing each record's previous same-hash occurrence.
 
 Outputs are integers only -- identity and gate math happen on the host in
 one shared float32 code path, so host and device engines agree bitwise.
@@ -47,9 +49,8 @@ _configure_jax()
 
 __all__ = ["l2_chunk_scan", "l2_event_curve"]
 
-# numpy scalars, NOT jnp: module-level jnp arrays become device-committed
-# after one execution and then get lifted into extra executable parameters
-# on re-trace, which this platform's dispatch fast path drops
+# numpy scalars: plain constants in every trace (a module-level jnp array
+# would be a device buffer created at import)
 _UMAX = np.uint32(0xFFFFFFFF)
 _BIG = np.int32(2**30)
 _SLAB = 64  # chunks processed per inner step to bound memory

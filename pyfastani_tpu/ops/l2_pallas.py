@@ -1,47 +1,38 @@
-"""Pallas TPU kernel for the L2 shared-sketch sweep.
+"""Pallas L2 chunk-sweep kernel for NVIDIA GPUs (Triton route).
 
-The XLA formulation (`ops.l2.l2_event_curve`) evaluates each candidate
-chunk with a sort + two interval-stabbing binary searches -- ~25 gather
-passes over HBM per slab.  This kernel keeps one chunk's working set
-resident in VMEM and replaces every gather/sort with dense VPU
-compare-reductions, which is the shape TPUs like:
+Evaluates the same per-chunk extrema as the XLA event scan
+(`ops.l2.l2_event_curve`): for every chunk -- one L1 candidate interval
+cut to at most ``cmax`` window offsets -- the maximum over record anchors
+of the shared-sketch count, and the first and last anchors that attain
+it.  Reference semantics: ``slidingMap.hpp`` / ``computeL2MappedRegions``
+declared at ``include/fastani/map/compute_map.pxd:30-51``.
 
-* the chunk's reference-minimizer slice is DMA'd from HBM with one
-  dynamic row slice per array (no XLA gather);
-* the in-chunk sort of `l2_event_curve` existed only to find each
-  record's *previous same-hash occurrence* -- that is a pure function of
-  the reference index, so it is precomputed once at index build
-  (``mini_prev``) and DMA'd like the other per-minimizer arrays.  Using
-  the global previous occurrence is semantically identical inside a
-  chunk: a previous occurrence before the chunk's range satisfies
-  ``prev < c0 <= anchor``, so the interval clip at ``prev + 1`` can
-  never exclude an in-range anchor;
-* all pairwise work (sketch membership, anchor interval-stabbing) is
-  strictly 2D: per-128 block pairs of (sublane x lane) compares, with
-  interval-side data moved onto sublanes by ONE (128, 128) identity
-  matmul per slab (an MXU transpose).  3D lane-broadcast formulations
-  compile pathologically in Mosaic (minutes per variant); this shape
-  compiles in seconds and is the VPU's native layout;
-* transposed values ride f32 exactly: window positions are < 2^24
-  (checked by the caller), sentinels are powers of two, and the u32
-  hashes travel as two u16 halves.
+The event scan sorts each chunk by (hash, position) to find every
+record's previous same-hash occurrence.  That occurrence is a pure
+function of the reference index, so it is precomputed once at index
+build (``mini_prev``, `compute_mini_prev`).  Using the global previous
+occurrence is exact inside a chunk: an occurrence before the chunk's
+range satisfies ``prev < c0 <= anchor``, so the interval clip at
+``prev + 1`` never excludes an in-range anchor.  With it no sort is
+left, and the shared count at anchor ``a`` is
 
-Semantics are identical to `l2_event_curve` (same best/first/last per
-chunk, validated by tests/test_l2_pallas.py against the XLA path and
-the host oracle); reference behavior reconstructed from
-``slidingMap.hpp`` / ``computeL2MappedRegions`` declared at
-``include/fastani/map/compute_map.pxd:30-51``.
+    shared(a) = #{j : hash_j in sketch, start_j <= p_a <= p_j},
+    start_j = max(p_j - cmw + 1, prev_j + 1)
 
-Layout contract (see `l2_chunks_pallas`):
+an integer compare-and-count.  Positions ascend strictly inside a range
+(ranges are contig-pure), so only entries ``j >= a`` with
+``p_j < p_a + cmw`` can count: a band that the kernel walks with a
+dynamic bound, so no statistic of the index is needed.
 
-* minimizer arrays are reshaped to (Mr, 128) rows with ``Rr + 8`` guard
-  rows appended; a chunk's range starting at element ``lo`` is the row
-  slice ``[lo // 128, lo // 128 + Rr)`` plus an in-row offset
-  ``lo % 128`` -- Mosaic requires the slice *height* to be a multiple
-  of 8 but allows arbitrary row offsets;
-* the per-fragment sketch matrix gets 8 pad rows so the kernel can DMA
-  the 8-aligned row group containing ``frag`` (rows wider than 128
-  lanes require 8-aligned row offsets) and select the row in-register.
+One program per chunk.  Each loads its own range with clamped gathers
+at a dynamic offset, walks it in blocks of ``_BA`` anchors, and for each
+anchor block walks the band in blocks of ``_BJ`` entries.  Sketch
+membership is a vectorised binary search over the fragment's sorted
+sketch row.  Empty chunks (``rlen == 0`` or ``clen == 0``) run no loop
+and write the event scan's no-anchor defaults ``(-1, c0, c0)``.  All
+arithmetic is int32 compares and adds: there is no float and no matrix
+product, so results are exact at any window position below
+``2**31 - cmw``.
 """
 
 from __future__ import annotations
@@ -57,12 +48,15 @@ from ..utils.jaxconfig import configure as _configure_jax
 _configure_jax()
 
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = ["l2_chunks_pallas", "compute_mini_prev", "mini_prev_from_index"]
 
-_UMAX = np.uint32(0xFFFFFFFF)
-_BIG = np.int32(2**30)
+_BIG = np.int32(2**30)  # `compute_mini_prev`'s "no previous" is -_BIG
+_IMAX = np.int32(np.iinfo(np.int32).max)
+_IMIN = np.int32(np.iinfo(np.int32).min)
+_BA = 64  # anchors per block
+_BJ = 64  # band entries per inner step
 
 
 def compute_mini_prev(
@@ -71,7 +65,7 @@ def compute_mini_prev(
     """Per-minimizer previous same-hash occurrence (same contig), as a
     contig-local window position; -2**30 where none exists.
 
-    This is the precomputation that lets the L2 kernels clip presence
+    This is the precomputation that lets the L2 kernel clip presence
     intervals without sorting the chunk by hash (see module docstring).
     """
     m = mini_hash.shape[0]
@@ -117,370 +111,146 @@ def mini_prev_from_index(sub) -> np.ndarray:
 
 
 def _kernel(
-    # scalar prefetch (SMEM)
-    row_ref,  # (N,) i32 row index of the range start in the (Mr, 128) slabs
-    ofs_ref,  # (N,) i32 in-row element offset of the range start
-    rlen_ref,  # (N,) i32 number of real ref minimizers in the range
-    frag_ref,  # (N,) i32 fragment row of the chunk
+    lo_ref,  # (N,) i32 first reference entry of the chunk's range
+    rlen_ref,  # (N,) i32 entries in the range (contig-pure)
+    frag_ref,  # (N,) i32 fragment (sketch row) of the chunk
     c0_ref,  # (N,) i32 first window offset
-    clen_ref,  # (N,) i32 number of window offsets
-    seq_ref,  # (N,) i32 contig id the chunk belongs to
-    # tensor operands (stay in HBM; sliced via DMA).  The minimizer
-    # planes travel as ONE (3, Mr, 128) i32 stack: per-plane XLA slices
-    # of a hoisted program parameter hand Mosaic aliased offset views,
-    # which hang the DMA on real hardware -- indexing the plane inside
-    # the kernel keeps the operand a whole buffer.  No seqid plane: the
-    # caller clamps every range to one contig's minimizer block.
-    slabs_ref,  # (3, Mr, 128) i32: [hash(bitcast), wpos, prev]
-    q_ref,  # (F + 8, Sc) u32 sorted sketch hashes (UMAX pad)
-    # outputs
-    best_ref,  # (N,) i32
-    first_ref,  # (N,) i32
-    last_ref,  # (N,) i32
-    # scratch (double-buffered: see the pipelined-DMA note below)
-    s3,  # (2, 3, Rr, 128) i32: [hash bits, wpos, prev] -- ONE DMA per slot
-    q_s,  # (2, 8, Sc) u32
-    acc_s,  # (Rr, 128) i32 stabbing-count accumulator
-    sem,  # DMA semaphores (4,): [slab slot 0/1, q slot 0/1]
+    clen_ref,  # (N,) i32 number of window offsets (0 disables the chunk)
+    hash_ref,  # (M,) u32 position-ordered reference minimizer hashes
+    wpos_ref,  # (M,) i32 contig-local window positions
+    prev_ref,  # (M,) i32 previous same-hash occurrence (`compute_mini_prev`)
+    q_ref,  # (F * S,) u32 sorted sketch rows, flattened, UMAX pad
+    s_ref,  # (F,) i32 sketch sizes
+    best_ref,  # (N,) i32 out
+    first_ref,  # (N,) i32 out
+    last_ref,  # (N,) i32 out
     *,
-    Rr: int,
-    Sc: int,
+    S: int,
     cmw: int,
-    band: int,
 ):
     i = pl.program_id(0)
-    nsteps = pl.num_programs(0)
-    ofs = ofs_ref[i]
+    lo = lo_ref[i]
     rlen = rlen_ref[i]
     c0 = c0_ref[i]
     clen = clen_ref[i]
-    slot = jax.lax.rem(i, 2)
+    frag = frag_ref[i]
+    rlen = jnp.where(clen > 0, rlen, 0)
+    s = jnp.minimum(s_ref[frag], S)
+    qbase = frag * S
+    last_e = jnp.maximum(lo + rlen - 1, 0)
 
-    # --- software-pipelined DMAs -------------------------------------------
-    # The per-chunk DMA latency (~2 us for the slab + sketch copies) was
-    # over a third of the kernel's per-chunk cost (round-5 ava trace);
-    # double-buffered scratch + issuing step i+1's copies before step i's
-    # compute hides it entirely.  Copies are RECONSTRUCTED to wait (the
-    # standard Pallas pattern); padding steps (rlen == 0) neither issue
-    # nor wait, and any live/padding interleaving is safe because every
-    # step prefetches for its successor.
-    def _cp_slab(j, s):
-        return pltpu.make_async_copy(
-            slabs_ref.at[:, pl.ds(row_ref[j], Rr)], s3.at[s], sem.at[s]
-        )
+    def gather(ref, j):
+        # clamped gather of range entries j (masked by the callers)
+        return ref[jnp.clip(lo + j, 0, last_e)]
 
-    def _cp_q(j, s):
-        # q rows wider than 128 lanes need an 8-aligned row offset; DMA
-        # the aligned 8-row group and select the row in-register
-        fb = (frag_ref[j] // 8) * 8
-        return pltpu.make_async_copy(
-            q_ref.at[pl.ds(fb, 8)], q_s.at[s], sem.at[2 + s]
-        )
+    def in_sketch(h):
+        # vectorised lower-bound search of h in the sorted sketch row
+        lo_q = jnp.zeros(h.shape, jnp.int32)
+        hi_q = jnp.full(h.shape, s, jnp.int32)
+        for _ in range(max(1, S.bit_length())):
+            mid = (lo_q + hi_q) >> 1
+            v = q_ref[qbase + jnp.minimum(mid, S - 1)]
+            go = (lo_q < hi_q) & (v < h)
+            stay = (lo_q < hi_q) & ~(v < h)
+            lo_q = jnp.where(go, mid + 1, lo_q)
+            hi_q = jnp.where(stay, mid, hi_q)
+        qa = q_ref[qbase + jnp.minimum(lo_q, S - 1)]
+        return (lo_q < s) & (qa == h)
 
-    live_here = (rlen > 0) & (clen > 0)
+    a_lane = jax.lax.broadcasted_iota(jnp.int32, (_BA,), 0)
+    j_lane = jax.lax.broadcasted_iota(jnp.int32, (_BJ,), 0)
 
-    @pl.when((i == 0) & live_here)
-    def _first_issue():
-        _cp_slab(i, slot).start()
-        _cp_q(i, slot).start()
+    def anchor_block(b, carry):
+        best, first, last = carry
+        a0 = b * _BA
+        a_idx = a0 + a_lane
+        a_ok = a_idx < rlen
+        pa = gather(wpos_ref, a_idx)
+        anchor = a_ok & (pa >= c0) & (pa < c0 + clen)
+        # entries past the last in-range position + cmw - 1 stab nothing
+        # in this block: the band ends at the first such entry
+        limit = gather(wpos_ref, jnp.minimum(a0 + _BA, rlen) - 1) + (cmw - 1)
 
-    nxt = jnp.minimum(i + 1, nsteps - 1)
+        def band_live(c):
+            j0, _ = c
+            return (j0 < rlen) & (gather(wpos_ref, j0) <= limit)
 
-    @pl.when(
-        (i + 1 < nsteps) & (rlen_ref[nxt] > 0) & (clen_ref[nxt] > 0)
-    )
-    def _prefetch():
-        ns = jax.lax.rem(i + 1, 2)
-        _cp_slab(nxt, ns).start()
-        _cp_q(nxt, ns).start()
-
-    # default outputs; overwritten by the live branch below
-    best_ref[i] = jnp.int32(-1)
-    first_ref[i] = c0
-    last_ref[i] = c0
-
-    @pl.when(live_here)
-    def _live():
-        _cp_slab(i, slot).wait()
-        _cp_q(i, slot).wait()
-        frag = frag_ref[i]
-        fsub = frag - (frag // 8) * 8
-        rh_s = s3.at[slot, 0]
-        rp_s = s3.at[slot, 1]
-        rv_s = s3.at[slot, 2]
-
-        flat = jax.lax.broadcasted_iota(jnp.int32, (Rr, 128), 0) * 128 + (
-            jax.lax.broadcasted_iota(jnp.int32, (Rr, 128), 1)
-        )
-        valid = (flat >= ofs) & (flat < ofs + rlen)
-        rp = jnp.where(valid, rp_s[...], _BIG)
-
-        # --- MXU transposes -------------------------------------------------
-        # Everything pairwise below wants interval data on SUBLANES and
-        # anchor data on LANES.  3D lane-broadcasts compile pathologically
-        # in Mosaic, so instead each (Rr, 128) slab is transposed to
-        # (128, Rr) with ONE identity matmul (T[u, b] = slab[b, u]); the
-        # per-block column T[:, b:b+1] then broadcasts naturally.  All
-        # transposed quantities are exact in f32: positions < 2^24
-        # (enforced by the caller), sentinels are powers of two, and
-        # hashes travel as two u16 halves.  The interval-side validity
-        # needs NO transpose: it is a pure function of the element index,
-        # rebuilt from iota in the transposed layout.
-        ident = (
-            jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
-            == jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
-        ).astype(jnp.float32)
-        dn = (((1,), (1,)), ((), ()))
-
-        def _t(x_f32):  # (Rr, 128) f32 -> (128, Rr)
-            # HIGHEST: full-f32 multi-pass on the MXU.  The default
-            # single-pass bf16 truncates the 17-24 bit integer positions
-            # and silently corrupts every comparison downstream.  (An
-            # 11-dot byte-split at DEFAULT precision and the same
-            # exactness benchmarked within noise of this, so the simpler
-            # form stays; Mosaic cannot lower Precision.HIGH in-kernel.)
-            return jax.lax.dot_general(
-                ident, x_f32, dn, preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
+        def band_step(c):
+            j0, cnt = c
+            j_idx = j0 + j_lane
+            j_ok = j_idx < rlen
+            p = gather(wpos_ref, j_idx)
+            st = jnp.maximum(p - (cmw - 1), gather(prev_ref, j_idx) + 1)
+            cd = j_ok & in_sketch(gather(hash_ref, j_idx))
+            stab = (
+                cd[None, :]
+                & (st[None, :] <= pa[:, None])
+                & (pa[:, None] <= p[None, :])
             )
+            return j0 + _BJ, cnt + jnp.sum(stab.astype(jnp.int32), axis=1)
 
-        rh_i = rh_s[...]  # hash bit pattern as i32
-        # ONE (4*Rr, 128) dot instead of four (Rr, 128) dots: the same
-        # MACs, but the MXU pass latency amortizes over a 4x-taller
-        # operand (the four transposes were latency-bound)
-        x4 = jnp.concatenate(
-            [
-                rp.astype(jnp.float32),
-                ((rh_i >> 16) & 0xFFFF).astype(jnp.float32),
-                (rh_i & 0xFFFF).astype(jnp.float32),
-                rv_s[...].astype(jnp.float32),
-            ],
-            axis=0,
+        _, cnt = jax.lax.while_loop(
+            band_live, band_step, (a0, jnp.zeros((_BA,), jnp.int32))
         )
-        t4 = _t(x4)  # (128, 4*Rr)
-        rpT = t4[:, 0 * Rr : 1 * Rr]
-        rhT_hi = t4[:, 1 * Rr : 2 * Rr]
-        rhT_lo = t4[:, 2 * Rr : 3 * Rr]
-        rvT = t4[:, 3 * Rr : 4 * Rr]
-        # transposed-layout element index: entry [u, jb] is element
-        # jb*128 + u of the range slab
-        uT = jax.lax.broadcasted_iota(jnp.int32, (128, 1), 0)
-
-        # the fragment's sketch row, as u16-half f32 lane vectors
-        row_ids = jax.lax.broadcasted_iota(jnp.int32, (8, Sc), 0)
-        q_i32 = jnp.where(
-            row_ids == fsub, q_s[slot].astype(jnp.int32), jnp.int32(0)
-        )
-        q_row = jnp.sum(q_i32, axis=0, keepdims=True)  # (1, Sc) i32
-        q_hi = ((q_row >> 16) & 0xFFFF).astype(jnp.float32)
-        q_lo = (q_row & 0xFFFF).astype(jnp.float32)
-
-        # anchors = record positions inside [c0, c0 + clen)
-        anchor_ok = valid & (rp >= c0) & (rp < c0 + clen)
-        rp_f = rp.astype(jnp.float32)
-        acc_s[...] = jnp.zeros((Rr, 128), jnp.int32)
-
-        for jb in range(Rr):
-
-            @pl.when(jb * 128 < ofs + rlen)
-            def _blk(jb=jb):
-                # interval block jb as (128, 1) columns
-                pj = rpT[:, jb : jb + 1]
-                # presence interval [start, pos], clipped at the previous
-                # same-hash occurrence so per-hash intervals are disjoint
-                # (their union is unchanged)
-                st = jnp.maximum(pj - (cmw - 1), rvT[:, jb : jb + 1] + 1)
-                # sketch membership via dense any-equal on the u16 halves
-                # (UMAX padding can only match masked-off slots, which
-                # the iota validity excludes)
-                eq = (rhT_hi[:, jb : jb + 1] == q_hi) & (
-                    rhT_lo[:, jb : jb + 1] == q_lo
-                )  # (128, Sc)
-                in_q = jnp.any(eq, axis=1, keepdims=True)  # (128, 1)
-                ej = jb * 128 + uT
-                cd = in_q & (ej >= ofs) & (ej < ofs + rlen)
-
-                # positions ascend along the slab, so an interval in
-                # block jb can only stab anchors in blocks [jb - band,
-                # jb]: anchors after jb have pa > pj, anchors more than
-                # the densest cmw-window's entry count behind have
-                # pa < st.  ``band`` is exact (densest-window statistic
-                # of the shard), so the triangular-banded loop is a pure
-                # skip of provably-zero pairs.
-                for ab in range(max(0, jb - band), jb + 1):
-
-                    @pl.when(ab * 128 < ofs + rlen)
-                    def _ablk(jb=jb, ab=ab, st=st, pj=pj, cd=cd):
-                        pa = rp_f[ab : ab + 1, :]  # (1, 128) anchor pos
-                        stab = cd & (st <= pa) & (pa <= pj)  # (128, 128)
-                        acc_s[ab : ab + 1, :] += jnp.sum(
-                            stab.astype(jnp.int32), axis=0, keepdims=True
-                        )
-
-        shared = jnp.where(anchor_ok, acc_s[...], -1)
-        best = jnp.max(shared)
-        is_best = shared == best
-        first = jnp.min(jnp.where(is_best, rp, _BIG))
-        last = jnp.max(jnp.where(is_best, rp, -_BIG))
-        none = best < 0
-        best_ref[i] = best
-        first_ref[i] = jnp.where(none, c0, first)
-        last_ref[i] = jnp.where(none, c0, last)
-
-
-# chunks per pallas_call: the (N,) scalar-prefetch + output arrays are
-# SMEM-resident for the whole grid, and SMEM is ~1 MB -- an unsegmented
-# 12k-chunk call OOMs it.  4096 chunks x 10 arrays x 4 B (double
-# buffered, ~330 KB) stays under the budget while halving the segment
-# count relative to 2048.
-_NSEG = 4096
-
-
-@functools.partial(
-    jax.jit, static_argnames=("Rr", "Sc", "cmw", "interpret", "band")
-)
-def _l2_pallas_impl(
-    row, ofs, rlen, frag, c0, clen, seq, slabs, q_pad,
-    Rr: int, Sc: int, cmw: int, interpret: bool = False, band: int = None,
-):
-    N = row.shape[0]
-    if N > _NSEG:
-        n_seg = -(-N // _NSEG)
-        pad = n_seg * _NSEG - N
-        scal = [row, ofs, rlen, frag, c0, clen, seq]
-        # padding slots have rlen == 0: the kernel skips their DMAs and
-        # compute and writes the defaults.  The segment loop is UNROLLED
-        # (static slices, one inlined pallas_call per segment): a lax.map
-        # here costs ~2.4 ms of while-loop + dynamic-slice machinery per
-        # step on this platform (round-5 device trace) while the call
-        # itself is ~0.1 ms; the Mosaic kernel compiles once either way.
-        scal = [jnp.pad(a, (0, pad)) for a in scal]
-        outs = []
-        for s in range(n_seg):
-            sl = [a[s * _NSEG : (s + 1) * _NSEG] for a in scal]
-
-            def _run(sl=sl):
-                return _l2_pallas_impl.__wrapped__(
-                    *sl, slabs, q_pad, Rr, Sc, cmw, interpret, band
-                )
-
-            def _skip(sl=sl):
-                # the kernel's defaults for empty slots: (-1, c0, c0)
-                c0_seg = sl[4]
-                return (
-                    jnp.full((_NSEG,), -1, jnp.int32), c0_seg, c0_seg,
-                )
-
-            # live chunks are compacted at the front of the slot axis
-            # (interval prefix sums), so whole tail segments skip the
-            # kernel with one branch -- over-provisioned chunk budgets
-            # cost ~nothing instead of ~1 us of grid overhead per slot
-            outs.append(
-                jax.lax.cond(jnp.any(sl[2] > 0), _run, _skip)
-            )
+        shared = jnp.where(anchor, cnt, -1)
+        bb = jnp.max(shared)
+        hit = shared == bb
+        bf = jnp.min(jnp.where(hit, pa, _IMAX))
+        bl = jnp.max(jnp.where(hit, pa, _IMIN))
+        better = bb > best
+        tie = bb == best
         return (
-            jnp.concatenate([o[0] for o in outs])[:N],
-            jnp.concatenate([o[1] for o in outs])[:N],
-            jnp.concatenate([o[2] for o in outs])[:N],
+            jnp.maximum(best, bb),
+            jnp.where(better, bf, jnp.where(tie, jnp.minimum(first, bf), first)),
+            jnp.where(better, bl, jnp.where(tie, jnp.maximum(last, bl), last)),
         )
-    if band is None:
-        band = Rr - 1  # no statistic available: full triangle
-    kern = functools.partial(
-        _kernel, Rr=Rr, Sc=Sc, cmw=cmw, band=min(band, Rr - 1)
+
+    n_blk = (rlen + (_BA - 1)) // _BA
+    best, first, last = jax.lax.fori_loop(
+        0, n_blk, anchor_block, (jnp.int32(-1), _IMAX, _IMIN)
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=7,
-        grid=(N,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 2,
-        out_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        scratch_shapes=[
-            pltpu.VMEM((2, 3, Rr, 128), jnp.int32),
-            pltpu.VMEM((2, 8, Sc), jnp.uint32),
-            pltpu.VMEM((Rr, 128), jnp.int32),
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
-    )
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((N,), jnp.int32),
-            jax.ShapeDtypeStruct((N,), jnp.int32),
-            jax.ShapeDtypeStruct((N,), jnp.int32),
-        ],
-        interpret=interpret,
-    )(row, ofs, rlen, frag, c0, clen, seq, slabs, q_pad)
+    none = best < 0
+    best_ref[i] = best
+    first_ref[i] = jnp.where(none, c0, first)
+    last_ref[i] = jnp.where(none, c0, last)
 
 
-def _pad_rows_2d(arr_1d, fill, Mr: int, guard_rows: int):
-    """(M,) -> (Mr + guard_rows, 128) row-major with `fill` padding."""
-    M = arr_1d.shape[0]
-    total = (Mr + guard_rows) * 128
-    flat = jnp.full((total,), fill, arr_1d.dtype)
-    flat = jax.lax.dynamic_update_slice(flat, arr_1d, (0,))
-    return flat.reshape(Mr + guard_rows, 128)
-
-
-def build_pallas_slabs(mini_hash, mini_wpos, mini_prev, Mr, Rr):
-    """(3, Mr + Rr + 8, 128) i32 kernel operand (in-graph variant of the
-    host-side hoist in `parallel.sharded._pallas_host_2d`).  No seqid
-    plane: callers must pass contig-pure ranges."""
-    return jnp.stack(
-        [
-            jax.lax.bitcast_convert_type(
-                _pad_rows_2d(mini_hash, _UMAX, Mr, Rr + 8), jnp.int32
-            ),
-            _pad_rows_2d(mini_wpos, _BIG, Mr, Rr + 8),
-            _pad_rows_2d(mini_prev, np.int32(-_BIG), Mr, Rr + 8),
-        ]
-    )
-
-
+@functools.partial(jax.jit, static_argnames=("cmw", "interpret"))
 def l2_chunks_pallas(
     q_sorted,  # (F, S) u32 sorted sketches, UMAX pad
+    s_sizes,  # (F,) i32
     mini_hash,  # (M,) u32 position-ordered
     mini_wpos,  # (M,) i32
-    mini_prev,  # (M,) i32 previous same-hash occurrence (see compute_mini_prev)
+    mini_prev,  # (M,) i32 previous same-hash occurrence
     chunk_frag,  # (N,) i32
     chunk_c0,  # (N,) i32
     chunk_clen,  # (N,) i32
     chunk_lo,  # (N,) i32 first ref-minimizer element index of the range
     chunk_rlen,  # (N,) i32 range length
-    chunk_seq,  # (N,) i32
     cmw: int,
-    R: int,
     interpret: bool = False,
 ):
-    """Evaluate chunk curves on TPU; returns (best, first, last) (N,) i32.
+    """Evaluate chunk curves; returns (best, first, last) (N,) i32.
 
-    ``R`` must be a multiple of 1024 and at least max(chunk_rlen) + 128
-    (the extra 128 absorbs the in-row offset of the range start).  Every
-    range ``[lo, lo + rlen)`` must lie within ONE contig's minimizer
-    block (the sharded caller clamps against the contig offsets).
+    Every range ``[lo, lo + rlen)`` must lie within ONE contig's
+    minimizer block, whose positions ascend strictly (the sharded caller
+    clamps ranges against the contig offsets).  ``interpret=True`` runs
+    the kernel through the Pallas interpreter (tests on the CPU).
     """
-    if R % 1024:
-        raise ValueError(f"R must be a multiple of 1024, got {R}")
-    Rr = R // 128
-    M = int(mini_hash.shape[0])
-    Mr = max(1, -(-M // 128))
-
-    slabs = build_pallas_slabs(
-        jnp.asarray(mini_hash),
-        jnp.asarray(mini_wpos, jnp.int32),
-        jnp.asarray(mini_prev, jnp.int32),
-        Mr,
-        Rr,
+    S = q_sorted.shape[1]
+    N = int(chunk_frag.shape[0])
+    kern = functools.partial(_kernel, S=S, cmw=cmw)
+    args = (
+        chunk_lo, chunk_rlen, chunk_frag, chunk_c0, chunk_clen,
+        mini_hash, mini_wpos, mini_prev, q_sorted.reshape(-1), s_sizes,
     )
-
-    F, S = q_sorted.shape
-    Sc = max(128, -(-S // 128) * 128)
-    q_pad = jnp.full((F + 8, Sc), _UMAX, jnp.uint32)
-    q_pad = jax.lax.dynamic_update_slice(q_pad, jnp.asarray(q_sorted), (0, 0))
-
-    row = chunk_lo // 128
-    ofs = chunk_lo - row * 128
-    return _l2_pallas_impl(
-        row, ofs, chunk_rlen, chunk_frag, chunk_c0, chunk_clen, chunk_seq,
-        slabs, q_pad,
-        Rr, Sc, cmw, interpret,
-    )
+    out = jax.ShapeDtypeStruct((N,), jnp.int32)
+    return pl.pallas_call(
+        kern,
+        grid=(N,),
+        out_shape=(out, out, out),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        interpret=interpret,
+        name="l2_chunk_sweep",
+    )(*args)

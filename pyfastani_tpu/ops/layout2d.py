@@ -1,11 +1,9 @@
-"""Flattened-1D primitives expressed on a TPU-friendly ``(rows, 128)`` layout.
+"""Flattened-1D primitives expressed on a ``(rows, 128)`` layout.
 
-On TPU, XLA's layout assignment for long 1-D arrays tiles the single axis,
-and both compile time and runtime degrade sharply past ~1e5 elements
-(measured: the 1-D winnow kernel took 26 s to *compile* at 2^20 elements;
-the identical computation over a ``(8192, 128)`` array compiles in 0.8 s).
-Everything that streams over genome-length axes therefore uses a 2-D
-``(R, LANES)`` array whose row-major flattening is the logical sequence.
+Everything that streams over genome-length axes uses a 2-D
+``(R, LANES)`` array whose row-major flattening is the logical sequence,
+so scans and shifts vectorize across rows and only short row-carry
+passes stay 1-D.
 
 These helpers implement logical-1D operations on that layout:
 
@@ -107,8 +105,8 @@ def prefix_scan(xp, combine, arrays, identities):
         return arrays
 
     # 2. exclusive scan over the R row aggregates, refolded to (R2/128, 128)
-    # tiles (a (1, R) row vector is effectively 1-D and compiles
-    # pathologically on this platform) -- flat log-doubling there is cheap
+    # tiles (a (1, R) row vector would be a long 1-D pass) -- flat
+    # log-doubling there is cheap
     R2 = pad_to_lanes(R)
     rows2 = R2 // LANES
 

@@ -63,10 +63,10 @@ def _cumall(xp, x_bool):
 def _complement_bytes(xp, data):
     """Elementwise complement without a table GATHER.
 
-    An 8M-element 256-entry LUT gather costs ~60 ms on TPU (measured by
-    the round-5 device trace); the table has only ~26 non-identity
-    entries (12 IUPAC letters x 2 cases + 2 control bytes), so a chain of
-    vector selects is ~50x cheaper and bitwise identical.
+    The table has only ~26 non-identity entries (12 IUPAC letters x 2
+    cases + 2 control bytes), so a chain of vector selects replaces the
+    256-entry LUT gather, bitwise identical.  (Whether the select chain
+    still beats the gather on the GPU is not measured.)
     """
     if _is_numpy(xp):
         return complement_table()[data]

@@ -1,4 +1,4 @@
-"""Long-sequence minimizer winnowing in the TPU ``(rows, 128)`` layout.
+"""Long-sequence minimizer winnowing in the ``(rows, 128)`` layout.
 
 Semantics are identical (bitwise) to `pyfastani_tpu.ops.winnow` /
 `models._engine_np.winnow_sequence`, i.e. to the reference deque loop

@@ -24,7 +24,7 @@ the L1 minimum-hit count and the L2 identity-gate -- depend only on the
 fragment sketch size ``s`` for fixed parameters, so they are precomputed
 here as integer lookup tables (`min_hits_relaxed_table`,
 `l2_gate_table`) and gathered on device, keeping binomial quantile math off
-the TPU entirely.
+the device entirely.
 """
 
 from __future__ import annotations
@@ -246,16 +246,13 @@ def _table_cache_load(name: str, s_max: int, k: int, perc_identity: float):
     The tables are exact integer functions of (s_max, k, percentage
     identity) but cost seconds of float64 binomial work to derive (the
     gate table alone is ~s_max^2 log s_max CDF evaluations); sessions
-    rebuild them per process, so persist like the XLA compile cache.
-    Set PYFASTANI_TPU_CACHE_DIR=0 to disable.
+    rebuild them per process, so persist beside the XLA compile cache.
     """
     import os
 
-    from .utils.jaxconfig import _default_cache_dir
+    from .utils.jaxconfig import cache_dir
 
-    root = os.environ.get("PYFASTANI_TPU_CACHE_DIR", _default_cache_dir())
-    if not root or root == "0":
-        return None, None
+    root = cache_dir()
     path = os.path.join(
         root, f"stats_{name}_{s_max}_{k}_{float(perc_identity):.6g}.npy"
     )

@@ -1,18 +1,11 @@
 """JAX runtime configuration shared by every device-facing module.
 
-The persistent compilation cache matters a lot here: the chunked winnow
-and the sharded query program are compiled once per (shape, params)
-configuration, and on this platform a cold XLA compile of the query
-program takes ~10 s.  The ``JAX_COMPILATION_CACHE_DIR`` environment
-variable is not honored by this jaxlib build, so the cache must be
-enabled through ``jax.config`` -- which `configure` does, exactly once.
-
-Set ``PYFASTANI_TPU_CACHE_DIR=0`` to disable, or point it at a custom
-directory.  The default lives inside the source checkout
-(``<repo>/.jax_cache``, git-ignored) when the package runs from one --
-``/tmp`` does not reliably survive between sessions on this platform,
-and a cold compile of the query program costs minutes -- falling back
-to ``/tmp/jax_cache_pyfastani_tpu`` for installed copies.
+The persistent compilation cache matters: the chunked winnow and the
+sharded query program are compiled once per (shape, params)
+configuration, and a cold compile of the query program takes seconds.
+`configure` enables it exactly once: in ``JAX_COMPILATION_CACHE_DIR``
+when that variable is set (JAX reads it itself, and nothing is set in
+code), otherwise in the fixed ``<checkout>/.jax_cache`` (git-ignored).
 """
 
 from __future__ import annotations
@@ -22,11 +15,15 @@ import os
 _DONE = False
 
 
-def _default_cache_dir() -> str:
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    if os.path.isdir(os.path.join(repo, ".git")) or os.access(repo, os.W_OK):
-        return os.path.join(repo, ".jax_cache")
-    return "/tmp/jax_cache_pyfastani_tpu"
+def cache_dir() -> str:
+    """Where compiled programs (and the `stats` table cache) persist."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    checkout = os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    )
+    return os.path.join(checkout, ".jax_cache")
 
 
 def configure() -> None:
@@ -35,17 +32,10 @@ def configure() -> None:
     if _DONE:
         return
     _DONE = True
-    path = os.environ.get(
-        "PYFASTANI_TPU_CACHE_DIR",
-        os.environ.get("JAX_COMPILATION_CACHE_DIR", _default_cache_dir()),
-    )
-    if not path or path == "0":
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    try:
-        import jax
+    import jax
 
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-    except Exception:
-        pass
+    jax.config.update("jax_compilation_cache_dir", cache_dir())
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)

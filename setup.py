@@ -3,7 +3,7 @@ from setuptools import Extension, find_packages, setup
 setup(
     name="pyfastani-tpu",
     version="0.1.0",
-    description="TPU-native whole-genome ANI engine (FastANI method)",
+    description="Whole-genome ANI engine (FastANI method) on JAX accelerators",
     packages=find_packages(include=["pyfastani_tpu", "pyfastani_tpu.*"]),
     package_data={"pyfastani_tpu": ["py.typed", "**/*.pyi"]},
     ext_modules=[
@@ -17,5 +17,5 @@ setup(
     ],
     python_requires=">=3.9",
     install_requires=["numpy"],
-    extras_require={"tpu": ["jax"]},
+    extras_require={"jax": ["jax"]},
 )

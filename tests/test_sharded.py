@@ -21,9 +21,8 @@ def _mutate(rng, seq, rate):
     return arr.tobytes()
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (8, 1)])
-def test_sharded_matches_host(mesh_shape):
+def test_sharded_matches_host(mesh_shape, eight_devices):
     rng = np.random.default_rng(17)
     refs = [_rand_genome(rng, n) for n in (40_000, 25_000, 31_000, 18_000, 22_000)]
     query = _mutate(rng, refs[1], 0.04)
@@ -47,8 +46,7 @@ def test_sharded_matches_host(mesh_shape):
         assert a.identity == b.identity  # bitwise: fixed-point identity sums
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_sharded_self_query():
+def test_sharded_self_query(eight_devices):
     rng = np.random.default_rng(23)
     refs = [_rand_genome(rng, n) for n in (30_000, 45_000, 21_000)]
     sk = Sketch(backend="numpy")
@@ -66,8 +64,7 @@ def test_sharded_self_query():
     assert hits[0].matches == hits[0].fragments == 15
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_query_many_matches_per_genome():
+def test_query_many_matches_per_genome(eight_devices):
     """A batched multi-genome dispatch returns the same hits as one
     dispatch per genome (and as the host engine)."""
     from pyfastani_tpu.parallel.sharded import ShardedSession
@@ -105,8 +102,7 @@ def test_query_many_matches_per_genome():
     assert batched[2] == []
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_determinism_across_repeats_and_meshes():
+def test_determinism_across_repeats_and_meshes(eight_devices):
     """The same query gives identical hits on repeated dispatches and on
     different mesh layouts (the reference has no such guarantee -- its
     thread pool makes tie handling order-dependent; see
@@ -141,8 +137,7 @@ def test_determinism_across_repeats_and_meshes():
             assert a.identity == b.identity  # bitwise: fixed-point identity sums
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
-def test_checkpoint_restore_matches_host(tmp_path):
+def test_checkpoint_restore_matches_host(tmp_path, eight_devices):
     """ShardedIndex.save/load + ShardedSession.from_index: a session
     restored from a checkpoint (no Mapper, no re-partition) matches the
     host engine -- the multi-host resume path (SURVEY.md §5)."""

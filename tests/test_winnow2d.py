@@ -1,7 +1,7 @@
 """(R, 128)-layout chunked winnowing vs the 1-D host specification.
 
 `ops.winnow2d` re-derives winnowing (hashing, palindrome skip, sliding
-minimum, dedup, the window-0 suppression quirk) in the TPU 2-D layout
+minimum, dedup, the window-0 suppression quirk) in the (R, 128) layout
 with carried chunk boundaries; it must be bitwise identical to
 `models._engine_np.winnow_sequence` (itself pinned to the reference deque
 loop by tests/test_winnow.py) for every chunk size.
